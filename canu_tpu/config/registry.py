@@ -16,7 +16,7 @@ Mirrors the reference's flag system semantics
   * `print_options()` dumps the registry (-options, Defaults.pm:327-348);
   * sizes accept units: 4.6m, 12k, 1.2g (Configure.pm:460-512).
 
-TPU-specific parameters (band widths, hash counts) follow the same
+Device-specific parameters (band widths, hash counts) follow the same
 naming conventions; the reference's per-stage memory/thread knobs are
 accepted but advisory (resource solving is XLA's job here).
 """
@@ -88,7 +88,7 @@ class Config:
     def _reg_exec(self, stage: str, name: str) -> None:
         """Per-stage execution resource group (reference setExecDefaults,
         Defaults.pm:637-655): Memory/Threads/Concurrency/StageSpace +
-        gridOptions<stage>.  Advisory on TPU — XLA owns device resource
+        gridOptions<stage>.  Advisory here — XLA owns device resource
         solving and there is one accelerator process per host — but
         accepted, validated, and echoed into the spec log exactly like
         the reference's.  Keys already registered with a REAL mechanism
@@ -228,8 +228,7 @@ class Config:
                   "candidate matching: device (block x block compare) | "
                   "join (LSH hash-join, O(N*H) — identical pair set) | "
                   "auto (join above 5k reads; the block matrix is "
-                  "quadratic in read count and cost 122-163 s/phase at "
-                  "33k reads vs seconds for the join)")
+                  "quadratic in read count, the join linear)")
         self._reg("objectStore", "", str,
                   "stash/fetch phase outputs: '' (off), TEST:<dir>, or gs://bucket (Grid_Cloud.pm)")
         self._reg("enableOEA", True, _bool, "overlap error adjustment: RED read-error voting + OEA erate recompute")
@@ -249,7 +248,7 @@ class Config:
                   "candidate-pair count above which verified overlaps stream to disk (native external sort)")
         self._reg("maxMemory", 0, int, "advisory memory cap (GB); 0 = unlimited")
         self._reg("maxThreads", 0, int, "advisory host thread cap; 0 = auto")
-        self._reg("useGrid", False, _bool, "launch via jax.distributed on SLURM/TPU-pod (parallel.launch)")
+        self._reg("useGrid", False, _bool, "launch via jax.distributed on SLURM (parallel.launch)")
         self._reg("shardedCompute", "auto", str, "run meryl/overlap-candidate stages on the device mesh: auto (on when >1 device), true, false")
         self._reg("onSuccess", "", str, "command to run when the pipeline finishes (gets the prefix as arg)")
         self._reg("onFailure", "", str, "command to run when the pipeline fails (gets the prefix as arg)")
@@ -414,7 +413,7 @@ class Config:
         ):
             self._reg_exec(stage, name)
         # external grid engines: explicit n/a stubs (the scale path is
-        # jax.distributed over TPU pods/SLURM, parallel/launch.py); any
+        # jax.distributed over SLURM, parallel/launch.py); any
         # non-empty value errors in validate() with the porting pointer
         for ge in ("gridEngine", "gridEngineSubmitCommand",
                    "gridEngineNameOption", "gridEngineArrayOption",
@@ -650,7 +649,7 @@ class Config:
                 raise ConfigError(
                     f"{p.key} is an n/a stub: external grid engines are "
                     "replaced by jax.distributed launch (useGrid=true + "
-                    "parallel/launch.py; SLURM/TPU-pod bootstrap)"
+                    "parallel/launch.py; SLURM bootstrap)"
                 )
 
     def coverage_multiple(self, key: str, est_coverage: float) -> float:

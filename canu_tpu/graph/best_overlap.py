@@ -30,7 +30,7 @@ device-verified OverlapStore:
 Positions are hang-arithmetic estimates (consensus refines them), like
 the reference's initial tgPositions before optimizePositions.
 Deliberately host-side: the graph walk is sequential pointer chasing —
-the TPU's job was scoring the edges (SURVEY.md §7 step 10).
+the device's job was scoring the edges (SURVEY.md §7 step 10).
 """
 
 from __future__ import annotations

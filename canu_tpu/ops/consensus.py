@@ -73,7 +73,7 @@ def polish_tig(
     (/root/reference/src/utgcns/utgcns.C generatePBDAG: reads aligned to
     a backbone with edlib, per-column consensus;
     /root/reference/src/utgcns/libcns/abAbacus-refine.C: iterate until
-    the sequence stops changing).  TPU design: the backbone is cut into
+    the sequence stops changing).  Device design: the backbone is cut into
     fixed-length segments that become template rows of the vote-pile
     engine; every placed read votes into each segment it overlaps via
     ends-free (HW) banded alignment — placements are hang-estimates, so

@@ -12,7 +12,7 @@ of (column, delta, base) tags, edges between consecutive tags are
 counted, and the consensus is the heaviest consistent source-to-sink
 path.
 
-TPU design: the expensive part — base-level alignment of every evidence
+Device design: the expensive part — base-level alignment of every evidence
 window onto the backbone — runs on device with the same window-frame DP
 the vote engine uses (trace.align_positions_lean); what comes back per
 job is the optimal-path evidence position j*(i) for every template row
@@ -88,8 +88,8 @@ def paths_for_jobs(
 ) -> tuple[np.ndarray, np.ndarray]:
     """Run every job through the path kernel; returns host arrays
     (js int32[n, Lt+1], e_sub uint8[n, W_e]).  Chunked like
-    votepile.pile_votes: one chunk per dispatch (CHUNKS_PER_DISPATCH
-    contract), async dispatches, results fetched in arrival order."""
+    votepile.pile_votes: one chunk per dispatch, async dispatches,
+    results fetched in arrival order."""
     from .votepile import CHUNK_CELL_BUDGET
 
     n = len(jobs)

@@ -153,11 +153,10 @@ def evidence_vote_jobs(
 # Canonical vote geometry: templates are cut into fixed VOTE_SEG-base
 # segments that become template rows of the vote engine — ONE small
 # always-warm compiled shape regardless of read length, exactly like
-# consensus.polish_tig.  Round-2's whole-read geometry (Lt = pow2 of the
-# longest template, 8192 for 7.8 kb reads) FAULTED the TPU at bacterial
-# scale: the lean DP's forward-row store is [n_rows+1, B, band] bytes =
-# 537 MB per chunk at n_rows=8192, and the device never survived a
-# block.  At 2048 it is 134 MB and the scan is 4x shorter.
+# consensus.polish_tig.  A whole-read geometry (Lt = pow2 of the longest
+# template, 8192 for 7.8 kb reads) makes the lean DP's forward-row store
+# [n_rows+1, B, band] bytes = 537 MB per chunk at n_rows=8192; at 2048
+# it is 134 MB and the scan is 4x shorter.
 VOTE_SEG = 2048
 # evidence slack at interior cut points: segment-boundary evidence
 # coordinates are linear interpolations of the overlap's endpoints, so

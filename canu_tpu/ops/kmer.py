@@ -2,8 +2,8 @@
 
 Replaces the reference meryl k-mer counter
 (/root/reference/src/meryl/meryl.C, libmeryl.C — pack mers, segment,
-sort, merge) with a TPU design: packed read blocks unpack on the VPU with
-shifts/masks, canonical k-mers are computed with branch-free bit
+sort, merge) with a device design: packed read blocks unpack with
+elementwise shifts/masks, canonical k-mers are computed with branch-free bit
 twiddling, and counting is ONE device sort over the whole read set plus a
 fixed-shape run-length reduction.  Only small results (count histogram,
 frequent-mer table) leave the device — device-to-host bandwidth is the
@@ -105,7 +105,7 @@ def extract_kmers2(words: jax.Array, lengths: jax.Array, k: int):
     valid bool[B, P]); the exact 2k-bit canonical k-mer is
     (hi << 32) | lo.  The reference meryl packs arbitrary k the same way
     into multiple machine words (/root/reference/src/meryl/libmeryl.C);
-    on TPU two uint32 lanes keep every op on the native VPU word size.
+    two uint32 lanes keep every op on 32-bit words.
     """
     assert 16 < k <= 32
     bases = unpack_bases(words)  # [B, L]
@@ -355,12 +355,11 @@ def count_readset_host(readset: ReadSet, k: int) -> "KmerCounts":
 
     The device counter concatenates EVERY k-mer instance into one
     on-device sort; past ~130M 2-lane instances the sort temporaries
-    exhaust a v5e's HBM (observed: 12 Mb x 18x corrected reads OOM'd
-    obt-meryl on every attempt).  The reference's meryl is a host
-    counter too (/root/reference/src/meryl/meryl.C:69-126, segment by
-    memory + sort per segment); here one numpy pass computes fwd/rc
-    64-bit k-mers with k shifted adds and np.unique sorts once —
-    ~O(30 s) per 200 Mbase on this host, zero HBM.
+    exhaust a 16 GB device (12 Mb x 18x corrected reads OOM'd obt-meryl
+    on every attempt).  The reference's meryl is a host counter too
+    (/root/reference/src/meryl/meryl.C:69-126, segment by memory + sort
+    per segment); here one numpy pass computes fwd/rc 64-bit k-mers with
+    k shifted adds and np.unique sorts once, with zero device memory.
     """
     from ..utils import bitpack
 

@@ -1,11 +1,10 @@
 """Shared-k-mer join between read pairs via one variadic sort.
 
 Finding the k-mers shared by two reads was originally a per-row
-jnp.searchsorted (binary search = 13 serial gather rounds, ~650 ms per
-[512, 8192] call on TPU — gathers are the enemy).  Instead: concatenate
-both reads' (kmer, payload) arrays, ONE jax.lax.sort carrying payloads,
-and detect cross-read matches as equal-key ADJACENT entries.  Sorts are
-fast on TPU (~50 ms for the same shape); payloads ride along in the
+jnp.searchsorted (binary search = 13 serial gather rounds per
+[512, 8192] call).  Instead: concatenate both reads' (kmer, payload)
+arrays, ONE jax.lax.sort carrying payloads, and detect cross-read
+matches as equal-key ADJACENT entries.  Payloads ride along in the
 variadic sort, so no argsort-then-gather either.
 
 Duplicate k-mers within a read only match once per adjacency — after

@@ -4,7 +4,7 @@ The falcon-sense/utgcns consensus path needs, for every evidence read
 aligned to a template, the evidence coordinate at EVERY template
 position (to vote bases/deletions/insertions).  The reference gets this
 from alignment tracebacks (falconConsensus-alignTag.C, edlib paths); a
-sequential traceback maps poorly to TPU, so instead:
+sequential traceback maps poorly to batched device code, so instead:
 
     run the banded DP FORWARD (cost of aligning prefixes) and BACKWARD
     (cost of aligning suffixes); a cell is on an optimal path iff
@@ -165,9 +165,8 @@ def align_positions(
 
 # rows per window anchor in align_positions_lean: the band start is
 # re-based every SROW rows so the inner DP steps use ONLY static shifts
-# (per-step take_along_axis gathers inside a lax.scan cost ~0.7 ms each
-# on TPU — measured scripts/profile_scanstep.py 2026-08-21: 682 us/step
-# gather vs 22 us/step for static ops, 30x)
+# instead of a per-step take_along_axis gather inside the lax.scan
+# (their relative cost on the H100 is not measured)
 SROW = 32
 
 
@@ -188,7 +187,7 @@ def align_positions_lean(
     window).  Consensus polish and segmented correction use this —
     evidence windows carry slack that must not be force-fitted.
 
-    TPU design (v2): template rows are processed in SUPER-ROWS of SROW
+    Design (v2): template rows are processed in SUPER-ROWS of SROW
     rows sharing one window anchor a_p (the band start of the
     super-row's first row).  Band starts are monotone with increments
     <= SMAX (enforced by _band_starts), so all SROW rows' bands live in
@@ -202,8 +201,7 @@ def align_positions_lean(
       * evidence gap  : prefix/suffix-min closure over lanes.
 
     The outer lax.scan runs over super-rows with the inner SROW steps
-    unrolled (NOT a nested scan — a scan-of-scan faults this TPU
-    runtime, see votepile.CHUNKS_PER_DISPATCH).  Re-anchoring between
+    unrolled (one loop level, not a nested scan).  Re-anchoring between
     super-rows is a log-round masked shift.  Forward rows are stored
     window-normalized uint8 (255 = out-of-band/INF); the backward pass
     folds the F+G combine in, emitting only the per-row optimal
@@ -237,8 +235,7 @@ def align_positions_lean(
 
     def fetch_ewin(a):
         # window e[a-1 .. a-1+EW) per row via masked log-shifts of the
-        # sentinel-padded evidence: 2D gathers inside the scan cost
-        # ~1.7ms each on TPU, the shift ladder ~0.1ms (profile_scanstep)
+        # sentinel-padded evidence instead of a 2D gather inside the scan
         x = e_pad
         j = 0
         while (1 << j) < x.shape[1]:

@@ -1,19 +1,19 @@
-"""Multi-host bootstrap (the Grid_*.pm role for TPU pods).
+"""Multi-host bootstrap (the Grid_*.pm role).
 
 The reference distributes work by submitting grid job arrays
 (/root/reference/src/pipelines/canu/Grid_SGE.pm etc.) over a shared
-filesystem.  The TPU-native equivalent is one jax process per host of a
-pod slice, joined through jax.distributed: ICI/DCN collectives replace
-the filesystem, and the "job array index" becomes (process_index,
-local device mesh position).
+filesystem.  Here it is one jax process per host, joined through
+jax.distributed: device collectives replace the filesystem, and the
+"job array index" becomes (process_index, local device mesh position).
 
 init_distributed() wires a process into the cluster from standard
 launcher environments, mirroring the reference's detect-then-configure
 grid probing (canu.pl:294-319):
 
-  * TPU pods: zero-config (jax.distributed.initialize autodetects);
   * SLURM: SLURM_NTASKS/SLURM_PROCID/SLURM_STEP_NODELIST;
   * manual: coordinator address + process count + id arguments.
+
+Without either, the process runs alone.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ def init_distributed(
     """Join the jax distributed runtime; returns (process_index, count).
 
     Safe to call single-host (no-op, returns (0, 1)).  Environment
-    detection order: explicit args > SLURM > TPU pod autodetect.
+    detection order: explicit args > SLURM.
     """
     import jax
 
@@ -61,7 +61,7 @@ def init_distributed(
     if coordinator is not None:
         try:
             # CPU multi-process needs an explicit cross-process
-            # collectives implementation (TPU pods bring their own)
+            # collectives implementation (GPUs bring NCCL)
             jax.config.update("jax_cpu_collectives_implementation", "gloo")
         except Exception:
             pass
@@ -70,8 +70,6 @@ def init_distributed(
             num_processes=num_processes,
             process_id=process_id,
         )
-    elif int(os.environ.get("TPU_WORKER_COUNT", "1")) > 1:
-        jax.distributed.initialize()  # TPU pod autodetect
     try:
         return jax.process_index(), jax.process_count()
     except Exception:

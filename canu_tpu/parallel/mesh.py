@@ -3,7 +3,7 @@
 Replaces the reference's grid-array distribution — the hash-block x
 query-block MHAP job matrix (/root/reference/src/pipelines/canu/
 OverlapMhap.pm:191-296) plus shared-filesystem shuffle — with a device
-mesh and XLA collectives (SURVEY.md §2.13 TPU mapping):
+mesh and XLA collectives (SURVEY.md §2.13):
 
   * axis 'r' (data parallel): reads are sharded across devices, every
     device sketches its own read block;
@@ -15,7 +15,7 @@ mesh and XLA collectives (SURVEY.md §2.13 TPU mapping):
     over nothing (they stay sharded by 'r').
 
 The same step compiles on a virtual CPU mesh (tests, driver dryrun) and
-a real TPU slice.
+on several GPUs of one host.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 The reference computes per-stage memory/thread envelopes from
 genomeSize and grid host classes
 (/root/reference/src/pipelines/canu/Configure.pm:522-730, grid
-bin-packing :184-454).  The TPU-native equivalents of those decisions:
+bin-packing :184-454).  The device-side equivalents of those decisions:
 
   * maxMemory (host GB) bounds the in-RAM overlap build — above the
     derived pair count, verified overlaps stream to the spill file and

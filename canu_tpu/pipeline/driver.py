@@ -11,7 +11,7 @@ resume/retry contract (/root/reference/src/pipelines/canu/Execution.pm):
   * `stopAfter=<stage>` halts at named points (Defaults.pm:1322-1334);
   * all stage begin/end times are logged to canu-logs/ (AS_global.C:130).
 
-No grid: stages run in-process; heavy compute is on the TPU device.
+No grid: stages run in-process; heavy compute is on the accelerator.
 Multi-host distribution shards *within* device ops (canu_tpu.parallel),
 not by scattering processes.
 """
@@ -152,10 +152,10 @@ def run_stage(ctx: AssemblyCtx, name: str, done: Callable[[], bool], fn: Callabl
                 if attempt == max_iter:
                     raise PipelineError(f"{name} failed after {max_iter} attempts") from e
                 # recover between attempts instead of replaying into the
-                # same wall: round 3's E. coli attempt 2 re-OOMed 4 ms
-                # after attempt 1 because the device still held every
-                # buffer.  Free them, shrink the verify window, and
-                # probe device health before re-entering fn().
+                # same wall: an E. coli attempt 2 re-OOMed 4 ms after
+                # attempt 1 because the device still held every buffer.
+                # Free them and shrink the verify window before
+                # re-entering fn().
                 from ..utils import runtime as RT
 
                 if RT.is_oom_error(e):
@@ -167,10 +167,6 @@ def run_stage(ctx: AssemblyCtx, name: str, done: Callable[[], bool], fn: Callabl
                         f"arrays; verify in-flight budget x{_INFLIGHT_BACKOFF:g}"
                     )
                     time.sleep(5.0)
-                elif "XlaRuntimeError" in type(e).__name__ or "DEADLINE" in str(e):
-                    # device-side fault (not OOM): a wedged TPU worker
-                    # takes 5-15 min to recycle; probe before retrying
-                    RT.wait_device_healthy(max_wait_s=900.0)
     if dist:
         barrier(f"post-{name}")
     if ctx.cfg.get("stopAfter").lower() == name.lower():

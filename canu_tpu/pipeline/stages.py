@@ -347,11 +347,11 @@ def overlap(ctx: AssemblyCtx, tag: str, rs: ReadSet, fk) -> OverlapStore:
                 pairs = sharded_find_candidates(sk, min_matches=min_matches)
             else:
                 me = str(cfg.get("mhapMatchEngine")).lower()
-                # auto threshold measured on the warm E. coli run: the
-                # device block matrix cost 122-163 s per phase at 33k
-                # reads while the host join is O(N*H) sort (~seconds);
-                # the block path wins only for small read sets where
-                # dispatch overhead dominates the join's d2h fetch
+                # auto threshold (not measured on the H100): the device
+                # block matrix is O(N^2) in block pairs while the host
+                # join is an O(N*H) sort; the block path wins only for
+                # small read sets where dispatch overhead dominates the
+                # join's d2h fetch
                 if me == "join" or (me == "auto" and rs.n_reads > 5_000):
                     # LSH hash-join: the block matrix is O(N^2) in block
                     # pairs and unusable at the 140 Mb read count

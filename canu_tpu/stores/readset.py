@@ -1,7 +1,7 @@
 """ReadSet — the read database (gkStore equivalent).
 
 Replaces the reference gkStore (/root/reference/src/stores/gkStore.H) with
-a columnar, numpy-backed store designed for TPU block loading:
+a columnar, numpy-backed store designed for device block loading:
 
   * sequences are 2-bit packed into one flat ``uint32`` array, each read
     starting on a word (16-base) boundary, so any subset of reads gathers

@@ -9,20 +9,6 @@ import sys
 import numpy as np
 
 
-def _force_cpu_ok() -> None:
-    """Tools are host utilities; honor JAX_PLATFORMS if the user set it."""
-    import os
-
-    plat = os.environ.get("JAX_PLATFORMS")
-    if plat:
-        try:
-            import jax
-
-            jax.config.update("jax_platforms", plat)
-        except Exception:
-            pass
-
-
 # ---- simulate (fastqSimulate) ------------------------------------------------
 
 
@@ -225,7 +211,6 @@ def cmd_ov_import(args: argparse.Namespace) -> int:
 
 
 def cmd_kmer_count(args: argparse.Namespace) -> int:
-    _force_cpu_ok()
     from ..ops import kmer as K
     from ..stores.readset import ReadSet
 
@@ -533,7 +518,6 @@ def cmd_best_edges(args: argparse.Namespace) -> int:
 
 
 def cmd_bogus(args: argparse.Namespace) -> int:
-    _force_cpu_ok()
     from ..io.fastx import read_fastx
     from ..sim.bogus import classify_genome, evaluate_assembly
     from ..utils.bitpack import seq_to_codes

@@ -5,8 +5,8 @@ Replaces the blob sequence encoding of the reference gkStore
 single flat layout chosen for device friendliness: base ``b`` at position
 ``p`` of a read occupies bits ``[2*(p%16), 2*(p%16)+1]`` of uint32 word
 ``p//16`` (LSB-first within a word), so a padded block of reads uploads to
-TPU as a dense ``uint32[B, W]`` array and unpacks with shifts/masks on the
-VPU.
+the device as a dense ``uint32[B, W]`` array and unpacks with elementwise
+shifts/masks.
 
 Base codes: A=0 C=1 G=2 T=3.  Complement is ``3 - code``.  Ambiguity codes
 (N etc.) are not representable; callers split reads at them the way

@@ -1,9 +1,9 @@
 """BASELINE config 5 probe: D. melanogaster-scale 140 Mb / 30x on ONE chip.
 
-A full single-chip e2e at this scale is ~10+ hours of pure verify
-device time (measured below); with one v5e and a bounded round clock,
-this probe MEASURES every stage that fits and projects the rest from
-measured per-unit rates, writing an honest `result.json`:
+A full single-chip e2e at this scale is expected to take hours of verify
+device time; within a bounded run clock this probe MEASURES every stage
+that fits and projects the rest from measured per-unit rates, writing
+an honest `result.json`:
 
   measured: sim, gatekeeper (native scanner), cor-meryl (host-fallback
             counter — the >2^27-instance route), sketch build (device),
@@ -53,7 +53,7 @@ def main() -> None:
     from canu_tpu.stores.readset import ReadSet
 
     # Two-phase operation so the ~1.26M-read simulation (host, CPU-only)
-    # can run concurrently with other TPU work: invoke once with
+    # can run concurrently with other device work: invoke once with
     # CANU_TPU_PROBE_SIMONLY=1 JAX_PLATFORMS=cpu to build the store, then
     # again without the env to run the device stages from the saved store.
     store = os.path.join(wd, "probe.gkpStore")
@@ -89,7 +89,7 @@ def main() -> None:
     # cor-meryl: 4.2e9 instances routes to the host counter.  This
     # stage is pure host CPU, so it can ALSO run as its own CPU-only
     # process (CANU_TPU_PROBE_MERYLONLY=1 JAX_PLATFORMS=cpu) concurrent
-    # with other TPU work; the result is checkpointed and reloaded.
+    # with other device work; the result is checkpointed and reloaded.
     fk_path = os.path.join(wd, "probe.frequent.npz")
     if os.path.exists(fk_path):
         z = np.load(fk_path)
@@ -163,7 +163,7 @@ def main() -> None:
     sub = pairs[np.sort(sel)][:, :2].astype(np.int64)
     # Verify against a COMPACT subset readset holding only the reads the
     # sample touches: staging the full 1.2M-read store's code planes to
-    # the device OOMs a single v5e, and the sharded pipeline never does
+    # the device OOMs a 16 GB device, and the sharded pipeline never does
     # that either — each process stages only its shard's reads.  Subset
     # + id remap bounds device memory at any total scale.
     uniq = np.unique(sub)

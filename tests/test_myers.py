@@ -1,8 +1,10 @@
 """Myers bit-vector banded extension vs the XLA scan reference kernel.
 
 On straight-diagonal bands the two must agree exactly; with drifting
-bands the Myers kernel's soft boundary (edlib-style +1/row wall) may
-only IMPROVE on banded_extend's hard-INF wall, never worsen it.
+bands the Myers kernel's soft boundary (the column entering above the
+window priced as its neighbour + 1, edlib-style) may only IMPROVE on
+banded_extend's hard-INF wall, never worsen it; along the band's low
+edge both take the same diagonal into each row's first column.
 """
 
 import numpy as np
@@ -102,3 +104,32 @@ def test_myers_zero_length_edges():
     assert e1.tolist() == e2.tolist()
     assert au1.tolist() == au2.tolist()
     assert bu1.tolist() == bu2.tolist()
+
+
+def _low_edge_cases(seed, B, LA, band):
+    """B is A with 20-40% of its bases deleted, the band centered on the
+    main diagonal: the true path falls behind the band and runs along
+    its low edge, moving diagonally into each row's first column."""
+    rng = np.random.default_rng(seed)
+    a = np.zeros((B, LA), np.uint8)
+    b = np.zeros((B, LA + band), np.uint8)
+    a_len = np.full(B, LA, np.int32)
+    b_len = np.zeros(B, np.int32)
+    for i in range(B):
+        x = rng.integers(0, 4, LA).astype(np.uint8)
+        y = x[rng.random(LA) >= 0.2 + 0.1 * (i % 3)]
+        a[i] = x
+        b[i, : len(y)] = y
+        b_len[i] = len(y)
+    centers = np.broadcast_to(np.arange(LA + 1, dtype=np.int32), (B, LA + 1))
+    return tuple(map(jnp.asarray, (a, a_len, b, b_len, centers.copy())))
+
+
+def test_myers_follows_the_band_low_edge():
+    # the first cell of a moved window takes the diagonal from the column
+    # that left it, as banded_extend's does: both DPs see the same path
+    args = _low_edge_cases(3, 32, 512, 128)
+    r1 = [np.asarray(x) for x in banded_extend(*args, band=128, n_rows=512)]
+    r2 = [np.asarray(x) for x in banded_extend_myers(*args, band=128, n_rows=512)]
+    for x, y in zip(r1, r2):
+        np.testing.assert_array_equal(x, y)

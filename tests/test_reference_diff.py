@@ -156,8 +156,8 @@ def e2edata(tmp_path_factory):
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
     r = subprocess.run(
-        [sys.executable, "-m", "canu_tpu", "-p", "tpu", "-d",
-         os.path.join(wd, "tpu"), "genomeSize=40k",
+        [sys.executable, "-m", "canu_tpu", "-p", "ours", "-d",
+         os.path.join(wd, "ours"), "genomeSize=40k",
          "-pacbio-corrected", fa],
         capture_output=True, text=True, timeout=900, env=env, cwd=repo,
     )
@@ -178,7 +178,7 @@ def test_trimmed_reads_match_reference(e2edata):
     wd, _g = e2edata
     ref = _fasta_lengths(os.path.join(wd, "ref", "ref.trimmedReads.fasta.gz"))
     ours = _fasta_lengths(
-        os.path.join(wd, "tpu", "trimming", "tpu.trimmedReads.fasta.gz"))
+        os.path.join(wd, "ours", "trimming", "ours.trimmedReads.fasta.gz"))
     assert abs(len(ours) - len(ref)) <= 0.10 * len(ref), (len(ours), len(ref))
     rb, ob = sum(ref), sum(ours)
     assert abs(ob - rb) <= 0.06 * rb, (ob, rb)
@@ -197,17 +197,17 @@ def test_contigs_match_reference(e2edata):
         return len(seqs), evaluate_assembly(g, seqs, k=21, circular=False)
 
     n_ref, ev_ref = ev(os.path.join(wd, "ref", "ref.contigs.fasta"))
-    n_tpu, ev_tpu = ev(os.path.join(wd, "tpu", "tpu.contigs.fasta"))
-    assert ev_ref.n_misjoins == 0 and ev_tpu.n_misjoins == 0, (
-        ev_ref.summary(), ev_tpu.summary())
+    n_ours, ev_ours = ev(os.path.join(wd, "ours", "ours.contigs.fasta"))
+    assert ev_ref.n_misjoins == 0 and ev_ours.n_misjoins == 0, (
+        ev_ref.summary(), ev_ours.summary())
     # fewer contigs than the reference is BETTER (more contiguous);
     # never more fragmented
-    assert n_tpu <= n_ref, (n_tpu, n_ref)
-    assert ev_tpu.contig_ng50 >= 0.95 * ev_ref.contig_ng50, (
-        ev_tpu.contig_ng50, ev_ref.contig_ng50)
-    assert ev_tpu.genome_fraction >= ev_ref.genome_fraction - 0.03, (
-        ev_tpu.summary(), ev_ref.summary())
-    assert ev_tpu.identity >= 0.999, ev_tpu.summary()
+    assert n_ours <= n_ref, (n_ours, n_ref)
+    assert ev_ours.contig_ng50 >= 0.95 * ev_ref.contig_ng50, (
+        ev_ours.contig_ng50, ev_ref.contig_ng50)
+    assert ev_ours.genome_fraction >= ev_ref.genome_fraction - 0.03, (
+        ev_ours.summary(), ev_ref.summary())
+    assert ev_ours.identity >= 0.999, ev_ours.summary()
 
 
 # ---- correction differential: our vote engine vs reference falcon-sense ----
